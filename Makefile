@@ -18,15 +18,13 @@ test-fast:
 # Executed 2-process jax.distributed evidence: full loop (train + eval +
 # logger gating + orbax multi-host checkpoint save/restore/continue) vs a
 # single-process control. Not part of `make test` (spawns 3 jax processes —
-# expensive on a one-core box and must not overlap other compiles); every
-# round's hardware queue runs it once (scripts/tpu_queue/r4).
+# expensive on a one-core box and must not overlap other compiles).
 test-multiproc:
 	RUN_MULTIPROC_SMOKE=1 python -m pytest tests/test_multiproc_smoke.py -x -q -s
 
 # Learning-threshold regression gate (opt-in: ~2-5 min of real training on the
 # 8-device CPU mesh; catches semantic regressions — e.g. a flipped GAE sign —
-# that still train and so pass the fast integration matrix). Run once per
-# round by the hardware queue.
+# that still train and so pass the fast integration matrix).
 test-learning:
 	RUN_LEARNING_GATE=1 python -m pytest tests/test_learning_gate.py -x -q -s
 
@@ -37,5 +35,5 @@ bench-suite:
 	python scripts/bench_suite.py
 
 train-smax:
-	python -m mava_tpu.systems.ppo.rec_ippo env=smax env/scenario=3s5z network=rnn \
+	python -m mava_jax.systems.ppo.rec_ippo env=smax env/scenario=3s5z network=rnn \
 	    arch.num_envs=64 system.recurrent_chunk_size=16

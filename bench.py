@@ -1,6 +1,7 @@
 """Throughput benchmark: env-steps/s/chip for ff-IPPO on RWARE tiny-2ag.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+Prints the device (platform, device_kind, count, power limit) on one line, then ONE
+JSON line: {"metric", "value", "unit", "vs_baseline"}. Refuses to run without a GPU.
 
 Baseline normalisation: the reference claims ~an order of magnitude over EPyMARL on
 RWARE with 16 vectorised envs (reference `README.md:80-104`; plots only, no numbers).
@@ -8,10 +9,9 @@ We take 700 env-steps/s as the EPyMARL-equivalent single-accelerator figure for
 rware-tiny (Papoudakis et al. era torch stack) and the driver target of >=10x that
 (BASELINE.md) as the baseline: vs_baseline = value / 7000.
 
-The measured configuration is the TPU-native operating point: one chip, a large
-vectorised env batch (512 envs/chip — the measured throughput knee), the full fused
-train step (rollout + GAE + 4 PPO epochs), so "env-steps/s" counts only real training
-env steps.
+The measured configuration: one device, a large vectorised env batch (512 envs per
+device), the full fused train step (rollout + GAE + 4 PPO epochs), so "env-steps/s"
+counts only real training env steps.
 """
 
 from __future__ import annotations
@@ -28,18 +28,19 @@ NUM_ENVS = 512
 ROLLOUT_LENGTH = 128
 UPDATES_PER_CALL = 4
 TIMED_CALLS = 10
-# The first executions after compile read ~15% slow (allocator/autotune
-# warm-up — measured by scripts/bench_band.py: repeat0 2.45M vs 2.86M steady
-# state), so a couple of calls are executed and discarded before timing.
+# The first executions after compile can read slow (allocator/autotune warm-up),
+# so a couple of calls are executed and discarded before timing.
 WARMUP_CALLS = 3
 
 
 def main() -> None:
-    from mava_tpu.systems.ppo.ff_ippo import learner_setup
-    from mava_tpu import envs as environments
-    from mava_tpu.parallel import make_mesh, num_learner_devices
-    from mava_tpu.utils.config import load_config
+    from mava_jax.systems.ppo.ff_ippo import learner_setup
+    from mava_jax import envs as environments
+    from mava_jax.parallel import make_mesh, num_learner_devices
+    from mava_jax.utils.config import load_config
+    from mava_jax.utils.device import describe_devices, require_gpu
 
+    print(describe_devices(require_gpu()), flush=True)
     cfg = load_config(
         "default_ff_ippo",
         [

@@ -1,6 +1,6 @@
 """Offline MARL from a Vault: behaviour-clone a policy from stored experience.
 
-The experience-recording system (`mava_tpu/advanced_usage/
+The experience-recording system (`mava_jax/advanced_usage/
 ff_ippo_store_experience.py`, reference parity) writes PPO rollouts to a
 `Vault`; this example closes the loop the reference leaves open — it CONSUMES
 a vault: loads the named trajectory leaves (`.obs.agents_view`, `.action`,
@@ -10,7 +10,7 @@ environment against the random baseline.
 
 Usage (record a dataset first, then clone from it):
 
-    python -m mava_tpu.advanced_usage.ff_ippo_store_experience \
+    python -m mava_jax.advanced_usage.ff_ippo_store_experience \
         env=rware env/scenario=tiny-2ag system.total_timesteps=2000000
     python examples/bc_from_vault.py vault_uid=<ts> env=rware \
         env/scenario=tiny-2ag bc_epochs=40
@@ -32,14 +32,14 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from mava_tpu import envs as environments
-from mava_tpu.evaluator import get_eval_fn, make_ff_eval_act_fn
-from mava_tpu.networks import FeedForwardActor as Actor
-from mava_tpu.networks.factory import make_action_head, make_torso
-from mava_tpu.parallel import make_mesh, num_learner_devices
-from mava_tpu.replay import Vault
-from mava_tpu.types import Observation
-from mava_tpu.utils.config import load_config
+from mava_jax import envs as environments
+from mava_jax.evaluator import get_eval_fn, make_ff_eval_act_fn
+from mava_jax.networks import FeedForwardActor as Actor
+from mava_jax.networks.factory import make_action_head, make_torso
+from mava_jax.parallel import make_mesh, num_learner_devices
+from mava_jax.replay import Vault
+from mava_jax.types import Observation
+from mava_jax.utils.config import load_config
 
 DEFAULTS = [
     "env=rware",

@@ -1,21 +1,21 @@
-"""Mava-TPU quickstart: train ff-IPPO to SOLVE Level-Based Foraging in one command.
+"""Quickstart: train ff-IPPO to SOLVE Level-Based Foraging in one command.
 
 The runnable counterpart of the reference's `examples/Quickstart.ipynb` (which
 walks through building MAPPO on Jumanji RWARE cell by cell): here the same
 journey is a guided tour of the framework's real modules, because every piece
 the notebook hand-rolls already exists as a tested component:
 
-* networks      -> `mava_tpu/networks/` (torsos, heads, FeedForwardActor/ValueNet)
-* learner       -> `mava_tpu/systems/ppo/ff_ippo.py::get_learner_fn`
+* networks      -> `mava_jax/networks/` (torsos, heads, FeedForwardActor/ValueNet)
+* learner       -> `mava_jax/systems/ppo/ff_ippo.py::get_learner_fn`
                    (rollout scan -> GAE -> minibatched PPO epochs, one compiled step)
-* device layout -> `mava_tpu/parallel/mesh.py` (data-sharded envs on a Mesh +
-                   shard_map; a pod slice runs the same program)
-* evaluation    -> `mava_tpu/evaluator.py` (greedy eval episodes, win/return table)
-* config        -> `mava_tpu/configs/` (composable yaml groups, CLI overrides)
+* device layout -> `mava_jax/parallel/mesh.py` (data-sharded envs on a Mesh +
+                   shard_map; several devices run the same program)
+* evaluation    -> `mava_jax/evaluator.py` (greedy eval episodes, win/return table)
+* config        -> `mava_jax/configs/` (composable yaml groups, CLI overrides)
 
 Run it (defaults: LBF 2s-8x8-2p-2f-coop, 2M env steps, 10 evaluations — the
-eval return climbs to near-perfect play, absolute 0.96 of the 1.0 maximum;
-measured on hardware in BASELINE.md):
+eval return climbs to near-perfect play, absolute 0.96 of the 1.0 maximum, in
+the earlier rounds' learning runs recorded in BASELINE.md):
 
     python examples/quickstart.py
 
@@ -26,8 +26,7 @@ Every config knob is overridable hydra-style, e.g. a RWARE run on a harder
         system.total_timesteps=5000000
 
 The console prints an eval table as training progresses; the script returns
-the final evaluation episode return. On a TPU chip the default run takes
-roughly a minute of device time after the first compile.
+the final evaluation episode return.
 """
 
 from __future__ import annotations
@@ -37,9 +36,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from mava_tpu.parallel import distributed
-from mava_tpu.systems.ppo import ff_ippo
-from mava_tpu.utils.config import load_config
+from mava_jax.parallel import distributed
+from mava_jax.systems.ppo import ff_ippo
+from mava_jax.utils.config import load_config
 
 QUICKSTART_DEFAULTS = [
     "env=lbf",

@@ -3,8 +3,8 @@
 The reference's README speed section plots steps-per-second against the
 number of vectorized envs (`docs/images/speed_results/mava_sps_results.png`,
 RTX 3060). This measures the same curve for the ff-IPPO headline config on
-the TPU chip: full training step, steady-state timing (3 warmups), one
-process for all points. Writes a JSON line per point and (if matplotlib is
+the GPU: full training step, steady-state timing (3 warmups), one
+process for all points. Refuses to run without a GPU. Writes a JSON line per point and (if matplotlib is
 importable) a figure to results/plots/sps_vs_envs.png following the repo
 chart conventions (scripts/plot_results.py).
 
@@ -22,10 +22,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-from mava_tpu import envs as environments
-from mava_tpu.parallel import make_mesh, num_learner_devices
-from mava_tpu.systems.ppo.ff_ippo import learner_setup
-from mava_tpu.utils.config import load_config
+from mava_jax import envs as environments
+from mava_jax.parallel import make_mesh, num_learner_devices
+from mava_jax.systems.ppo.ff_ippo import learner_setup
+from mava_jax.utils.config import load_config
 
 ENV_COUNTS = (16, 64, 256, 512, 1024, 2048)
 ROLLOUT = 128
@@ -63,6 +63,11 @@ def bench_point(num_envs: int, n: int) -> float:
 
 
 def main():
+    from mava_jax.utils.device import describe_devices, require_gpu
+
+    devices = require_gpu()
+    print(describe_devices(devices), flush=True)
+    device_kind = devices[0].device_kind
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 10
     points = []
     for num_envs in ENV_COUNTS:
@@ -94,7 +99,7 @@ def main():
         ax.set_xticklabels([str(x) for x in xs])
         ax.set_xlabel("vectorized envs per chip")
         ax.set_ylabel("env-steps / s / chip")
-        ax.set_title("ff-IPPO RWARE tiny-2ag — full training step (TPU v5 lite)")
+        ax.set_title(f"ff-IPPO RWARE tiny-2ag — full training step ({device_kind})")
         ax.grid(True, color="#E3E1DC", linewidth=0.8)
         for spine in ("top", "right"):
             ax.spines[spine].set_visible(False)

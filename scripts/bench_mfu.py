@@ -1,19 +1,20 @@
-"""MFU / roofline accounting for the headline configs (VERDICT r1 item 8).
+"""MFU / roofline accounting for the headline configs.
 
 For each config: build the REAL compiled learner (learner_setup), pull XLA's own
 cost model from the compiled executable (`compiled.cost_analysis()`: flops + bytes
 accessed), time the whole fused step, and report
 
-  env-steps/s/chip, model TFLOP/s achieved, MFU vs the v5e bf16 peak (197 TFLOP/s),
-  arithmetic intensity (flops/byte) and the HBM-bandwidth-bound ceiling,
+  env-steps/s/chip, model TFLOP/s achieved, its share of the card's published
+  TF32 peak (float32 matmuls may run as TF32) and bf16 peak, arithmetic intensity
+  (flops/byte) and the HBM-bandwidth-bound ceiling,
 
-one JSON line per config. This answers "is it actually fast or just faster than
-torch": tiny-MLP MARL workloads are env/latency-bound, and the numbers quantify by
-how much (SURVEY.md §5 profiling note; BASELINE.md MFU column).
+one JSON line per config, after a line naming the device. The peaks come from
+`mava_jax/utils/device.py:PEAKS` (NVIDIA's data sheet), keyed by `device_kind`;
+an unknown device is an error, and the script refuses to run without a GPU.
 
 Usage: python scripts/bench_mfu.py [config ...]
 Configs: ff_ippo_rware  rec_ippo_smax  ff_ippo_cleaner_cnn
-         rec_iql_smax  ff_isac_maswarm   (off-policy rows, VERDICT r2 next-4)
+         rec_iql_smax  ff_isac_maswarm   (off-policy rows)
 """
 
 from __future__ import annotations
@@ -26,10 +27,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-# TPU v5e (v5 lite) published peaks.
-PEAK_BF16_FLOPS = 197e12
-PEAK_HBM_BYTES = 819e9  # 819 GB/s
 
 ROLLOUT = 128
 UPDATES_PER_CALL = 4
@@ -53,8 +50,7 @@ CONFIGS = {
         "default_ff_ippo",
         ["env=cleaner", "network=cnn", "arch.num_envs=128"],
     ),
-    # Off-policy rows (VERDICT r2 next-4): measured at their BASELINE.md
-    # operating points. These families fuse act+train in one step, so the
+    # Off-policy rows. These families fuse act+train in one step, so the
     # accounting covers the whole algorithm exactly like the PPO rows.
     "rec_iql_smax": (
         "default_rec_iql",
@@ -80,12 +76,12 @@ OFFPOLICY_SCAN_STEPS = 32
 def _build_ppo(default, overrides, mesh, n_devices):
     import importlib
 
-    from mava_tpu import envs as environments
-    from mava_tpu.utils.config import load_config
+    from mava_jax import envs as environments
+    from mava_jax.utils.config import load_config
 
     module = importlib.import_module(
-        "mava_tpu.systems.ppo.rec_ippo" if "rec" in default else
-        "mava_tpu.systems.ppo.ff_ippo"
+        "mava_jax.systems.ppo.rec_ippo" if "rec" in default else
+        "mava_jax.systems.ppo.ff_ippo"
     )
     cfg = load_config(
         default,
@@ -103,8 +99,8 @@ def _build_ppo(default, overrides, mesh, n_devices):
 
 
 def _build_rec_iql(overrides, mesh, n_devices):
-    from mava_tpu.systems.q_learning import rec_iql
-    from mava_tpu.utils.config import load_config
+    from mava_jax.systems.q_learning import rec_iql
+    from mava_jax.utils.config import load_config
 
     cfg = load_config("default_rec_iql", overrides + ["logger.use_console=False"])
     cfg.arch.n_devices = n_devices
@@ -116,9 +112,9 @@ def _build_rec_iql(overrides, mesh, n_devices):
 
 
 def _build_ff_isac(overrides, mesh, n_devices):
-    from mava_tpu.systems.sac import ff_isac
-    from mava_tpu.utils.config import load_config
-    from mava_tpu.utils.timestep_checker import check_total_timesteps
+    from mava_jax.systems.sac import ff_isac
+    from mava_jax.utils.config import load_config
+    from mava_jax.utils.timestep_checker import check_total_timesteps
 
     cfg = load_config("default_ff_isac", overrides + ["logger.use_console=False"])
     cfg.arch.n_devices = n_devices
@@ -131,8 +127,8 @@ def _build_ff_isac(overrides, mesh, n_devices):
     return update, state, steps, lambda out: out[0]
 
 
-def bench_one(name: str) -> None:
-    from mava_tpu.parallel import make_mesh, num_learner_devices
+def bench_one(name: str, peak: dict) -> None:
+    from mava_jax.parallel import make_mesh, num_learner_devices
 
     default, overrides = CONFIGS[name]
     mesh = make_mesh()
@@ -168,8 +164,10 @@ def bench_one(name: str) -> None:
     intensity = flops_per_call / bytes_per_call if bytes_per_call else 0.0
     # Roofline: with this arithmetic intensity the best achievable FLOP/s is
     # min(peak_flops, intensity * peak_bw); MFU relative to that ceiling shows how
-    # close the program is to ITS roof (vs the absolute bf16 peak).
-    roof = min(PEAK_BF16_FLOPS, intensity * PEAK_HBM_BYTES) if intensity else 0.0
+    # close the program is to ITS roof (vs the absolute TF32 peak).
+    roof = (
+        min(peak["tf32_flops"], intensity * peak["hbm_bytes_per_s"]) if intensity else 0.0
+    )
 
     print(
         json.dumps(
@@ -184,9 +182,10 @@ def bench_one(name: str) -> None:
                 "achieved_tflops": round(achieved_flops / 1e12, 4),
                 "achieved_hbm_gbps": round(achieved_bw / 1e9, 1),
                 "arithmetic_intensity_flops_per_byte": round(intensity, 2),
-                "mfu_vs_bf16_peak": round(achieved_flops / PEAK_BF16_FLOPS, 5),
+                "mfu_vs_tf32_peak": round(achieved_flops / peak["tf32_flops"], 5),
+                "mfu_vs_bf16_peak": round(achieved_flops / peak["bf16_flops"], 5),
                 "mfu_vs_roofline": round(achieved_flops / roof, 4) if roof else None,
-                "hbm_utilisation": round(achieved_bw / PEAK_HBM_BYTES, 4),
+                "hbm_utilisation": round(achieved_bw / peak["hbm_bytes_per_s"], 4),
             }
         ),
         flush=True,
@@ -194,9 +193,14 @@ def bench_one(name: str) -> None:
 
 
 def main() -> None:
+    from mava_jax.utils.device import describe_devices, peaks, require_gpu
+
+    devices = require_gpu()
+    print(describe_devices(devices), flush=True)
+    peak = peaks(devices[0].device_kind)
     names = sys.argv[1:] or list(CONFIGS)
     for name in names:
-        bench_one(name)
+        bench_one(name, peak)
 
 
 if __name__ == "__main__":

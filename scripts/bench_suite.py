@@ -1,4 +1,5 @@
-"""Multi-config throughput suite (BASELINE.md numbers). One JSON line per config.
+"""Multi-config throughput suite. One JSON line per config, after a line naming
+the device (platform, device_kind, count, power limit). Refuses to run without a GPU.
 
 Usage: python scripts/bench_suite.py [config ...]
 Configs: ff_ippo_rware  ff_mappo_rware4  ff_mappo_lbf  rec_ippo_smax  rec_mappo_smax
@@ -18,25 +19,25 @@ import jax
 CONFIGS = {
     "ff_ippo_rware": (
         "default_ff_ippo",
-        "mava_tpu.systems.ppo.ff_ippo",
+        "mava_jax.systems.ppo.ff_ippo",
         ["env=rware", "env/scenario=tiny-2ag", "arch.num_envs=256"],
         dict(centralised_critic=False),
     ),
     "ff_mappo_rware4": (
         "default_ff_mappo",
-        "mava_tpu.systems.ppo.ff_ippo",
+        "mava_jax.systems.ppo.ff_ippo",
         ["env=rware", "env/scenario=tiny-4ag", "arch.num_envs=256"],
         dict(centralised_critic=True),
     ),
     "ff_mappo_lbf": (
         "default_ff_mappo",
-        "mava_tpu.systems.ppo.ff_ippo",
+        "mava_jax.systems.ppo.ff_ippo",
         ["env=lbf", "env/scenario=8x8-2p-2f-coop", "arch.num_envs=256"],
         dict(centralised_critic=True),
     ),
     "rec_ippo_smax": (
         "default_rec_ippo",
-        "mava_tpu.systems.ppo.rec_ippo",
+        "mava_jax.systems.ppo.rec_ippo",
         [
             "env=smax",
             "env/scenario=3s5z",
@@ -48,7 +49,7 @@ CONFIGS = {
     ),
     "rec_mappo_smax": (
         "default_rec_mappo",
-        "mava_tpu.systems.ppo.rec_ippo",
+        "mava_jax.systems.ppo.rec_ippo",
         [
             "env=smax",
             "env/scenario=3s5z",
@@ -68,9 +69,9 @@ TIMED_CALLS = 3
 def bench_one(name: str) -> None:
     import importlib
 
-    from mava_tpu import envs as environments
-    from mava_tpu.parallel import make_mesh, num_learner_devices
-    from mava_tpu.utils.config import load_config
+    from mava_jax import envs as environments
+    from mava_jax.parallel import make_mesh, num_learner_devices
+    from mava_jax.utils.config import load_config
 
     default, module_name, overrides, kwargs = CONFIGS[name]
     module = importlib.import_module(module_name)
@@ -96,9 +97,7 @@ def bench_one(name: str) -> None:
     )
 
     out = learn(learner_state)
-    # Steady state needs ~3 post-compile warmup calls (allocator/autotune —
-    # the j056 bench.py lesson; the single-warmup loop under-read by up to
-    # ~15-35% depending on config).
+    # Steady state needs a few post-compile warmup calls (allocator/autotune).
     for _ in range(3):
         out = learn(out.learner_state)
     jax.block_until_ready(out)
@@ -125,6 +124,9 @@ def bench_one(name: str) -> None:
 
 
 def main() -> None:
+    from mava_jax.utils.device import describe_devices, require_gpu
+
+    print(describe_devices(require_gpu()), flush=True)
     names = sys.argv[1:] or list(CONFIGS)
     for name in names:
         bench_one(name)

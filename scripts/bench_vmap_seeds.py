@@ -4,9 +4,9 @@ Times the stock single-seed ff-IPPO learn call and the S-seed vmapped call on th
 SAME config (RWARE tiny-2ag, 128 envs/seed — the learning-validated operating
 point), whole compiled programs in one process (CLAUDE.md timing rule). Reports
 the wall-clock ratio and the effective speedup over running the seeds
-sequentially. Expectation from the MFU/roofline numbers (docs/tpu_performance.md
-§7): the step is latency-bound, so seeds batch almost free until the chip's
-batch capacity saturates.
+sequentially. Hypothesis under test: the step is a long serial chain over small
+batches, so seeds batch almost free until the device's capacity saturates.
+Refuses to run without a GPU.
 
 Usage: python scripts/bench_vmap_seeds.py [num_seeds ...]  (default: 2 4 8)
 """
@@ -46,12 +46,14 @@ def timeit(fn, state):
 
 
 def main() -> None:
-    from mava_tpu import envs as environments
-    from mava_tpu.advanced_usage import ff_ippo_vmap_seeds as vs
-    from mava_tpu.parallel import make_mesh, num_learner_devices
-    from mava_tpu.systems.ppo import ff_ippo
-    from mava_tpu.utils.config import load_config
+    from mava_jax import envs as environments
+    from mava_jax.advanced_usage import ff_ippo_vmap_seeds as vs
+    from mava_jax.parallel import make_mesh, num_learner_devices
+    from mava_jax.systems.ppo import ff_ippo
+    from mava_jax.utils.config import load_config
+    from mava_jax.utils.device import describe_devices, require_gpu
 
+    print(describe_devices(require_gpu()), flush=True)
     seed_counts = [int(a) for a in sys.argv[1:]] or [2, 4, 8]
 
     cfg = load_config("default_ff_ippo", OVERRIDES)

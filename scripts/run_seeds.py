@@ -20,7 +20,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from mava_tpu.utils.config import load_config
+from mava_jax.utils.config import load_config
 
 
 def main() -> None:
@@ -36,7 +36,7 @@ def main() -> None:
         seeds = [42, 7, 123]
         overrides = sys.argv[3:]
 
-    module = importlib.import_module(f"mava_tpu.systems.{module_name}")
+    module = importlib.import_module(f"mava_jax.systems.{module_name}")
     results = []
     for seed in seeds:
         cfg = load_config(default, overrides + [f"system.seed={seed}"])

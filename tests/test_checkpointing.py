@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mava_tpu.systems.ppo.types import (
+from mava_jax.systems.ppo.types import (
     HiddenStates,
     LearnerState,
     OptStates,
     Params,
     RNNLearnerState,
 )
-from mava_tpu.utils.checkpointing import Checkpointer
+from mava_jax.utils.checkpointing import Checkpointer
 
 
 @pytest.fixture
@@ -117,8 +117,8 @@ def test_best_checkpoint_tracked_by_return(workdir):
 def test_end_to_end_save_then_load(workdir, fast_config_overrides):
     """Train ff-IPPO with checkpointing on, then start a run that loads the params
     (the reference's `learner_setup` load path, `ff_ippo.py:422-430`)."""
-    from mava_tpu.systems.ppo.ff_ippo import run_experiment
-    from mava_tpu.utils.config import load_config
+    from mava_jax.systems.ppo.ff_ippo import run_experiment
+    from mava_jax.utils.config import load_config
 
     cfg = load_config(
         "default_ff_ippo",
@@ -150,10 +150,10 @@ def test_exact_state_resume_is_bitwise(workdir):
     env states all round-trip (the reference can't do this — its resume is
     params-level, `checkpointing.py:428-430`). Also checks the params-level
     restore path still reads the composite layout."""
-    from mava_tpu import envs as environments
-    from mava_tpu.parallel import make_mesh, num_learner_devices
-    from mava_tpu.systems.ppo import ff_ippo
-    from mava_tpu.utils.config import load_config
+    from mava_jax import envs as environments
+    from mava_jax.parallel import make_mesh, num_learner_devices
+    from mava_jax.systems.ppo import ff_ippo
+    from mava_jax.utils.config import load_config
 
     cfg = load_config(
         "default_ff_ippo",
@@ -207,10 +207,10 @@ def test_exact_state_resume_is_bitwise(workdir):
 def test_exact_state_resume_sac_is_bitwise(workdir):
     """SAC counterpart: full-state round-trip through orbax (including the
     replay buffer and step counter) continues bit-identically."""
-    from mava_tpu.parallel import DATA_AXIS, build_learner, make_mesh, num_learner_devices
+    from mava_jax.parallel import DATA_AXIS, build_learner, make_mesh, num_learner_devices
     from jax.sharding import PartitionSpec as P
-    from mava_tpu.systems.sac import ff_isac
-    from mava_tpu.utils.config import load_config
+    from mava_jax.systems.sac import ff_isac
+    from mava_jax.utils.config import load_config
 
     cfg = load_config(
         "default_ff_isac",
@@ -273,7 +273,7 @@ def test_multihost_safe_state_single_process_is_device_get():
     import jax.numpy as jnp
     import numpy as np
 
-    from mava_tpu.utils.checkpointing import multihost_safe_state
+    from mava_jax.utils.checkpointing import multihost_safe_state
 
     tree = {"a": jnp.arange(4.0), "b": (jnp.zeros((2, 3)), jnp.int32(7))}
     host = multihost_safe_state(tree)
@@ -288,7 +288,7 @@ def test_default_checkpoint_uid_is_deterministic_shape():
     a wire contract, not a cosmetic choice."""
     import os
 
-    from mava_tpu.utils.checkpointing import Checkpointer
+    from mava_jax.utils.checkpointing import Checkpointer
 
     ck = Checkpointer(model_name="uid_shape_check", rel_dir="results/tmp_uid_check")
     uid = os.path.basename(ck.directory)

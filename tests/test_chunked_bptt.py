@@ -21,7 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mava_tpu.networks import ScannedRNN
+from mava_jax.networks import ScannedRNN
 
 T, B, A = 8, 4, 2
 F = H = 6  # GRU output dim follows the carry width
@@ -110,10 +110,10 @@ def test_chunk_layouts_identical_at_default_chunk():
     """contiguous and strided are both the identity when chunk=rollout_length:
     one full rec-IPPO update must produce the same learner state under either
     (VERDICT r4 next-7 done-condition)."""
-    from mava_tpu import envs as environments
-    from mava_tpu.parallel import make_mesh, num_learner_devices
-    from mava_tpu.systems.ppo import rec_ippo
-    from mava_tpu.utils.config import load_config
+    from mava_jax import envs as environments
+    from mava_jax.parallel import make_mesh, num_learner_devices
+    from mava_jax.systems.ppo import rec_ippo
+    from mava_jax.utils.config import load_config
 
     def run(layout):
         cfg = load_config(
@@ -148,10 +148,10 @@ def test_chunk_layouts_identical_at_default_chunk():
 def test_unknown_chunk_layout_raises():
     import pytest
 
-    from mava_tpu import envs as environments
-    from mava_tpu.parallel import make_mesh, num_learner_devices
-    from mava_tpu.systems.ppo import rec_ippo
-    from mava_tpu.utils.config import load_config
+    from mava_jax import envs as environments
+    from mava_jax.parallel import make_mesh, num_learner_devices
+    from mava_jax.systems.ppo import rec_ippo
+    from mava_jax.utils.config import load_config
 
     cfg = load_config(
         "default_rec_ippo",

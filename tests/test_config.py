@@ -2,7 +2,7 @@
 
 import pytest
 
-from mava_tpu.utils.config import load_config
+from mava_jax.utils.config import load_config
 
 
 def test_default_composition():

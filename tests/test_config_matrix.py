@@ -4,7 +4,7 @@ from pathlib import Path
 
 import pytest
 
-from mava_tpu.utils.config import CONFIG_DIR, load_config
+from mava_jax.utils.config import CONFIG_DIR, load_config
 
 DEFAULTS = sorted(p.stem for p in Path(CONFIG_DIR).glob("default_*.yaml"))
 ENVS = sorted(p.stem for p in (Path(CONFIG_DIR) / "env").glob("*.yaml"))

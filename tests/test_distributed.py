@@ -2,7 +2,7 @@
 
 Real multi-process execution needs multiple hosts; here `jax.process_count`,
 `jax.process_index`, and `jax.make_array_from_process_local_data` are monkeypatched
-inside `mava_tpu.parallel.distributed` so each fake "process" records the local data
+inside `mava_jax.parallel.distributed` so each fake "process" records the local data
 it would contribute, and we check those local slices reconstruct exactly the
 single-process global arrays (VERDICT r1 item 1: prove the local-slice key math).
 """
@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mava_tpu.envs.rware import RobotWarehouse
-from mava_tpu.parallel import (
+from mava_jax.envs.rware import RobotWarehouse
+from mava_jax.parallel import (
     make_mesh,
     put_replicated,
     put_sharded_rows,

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mava_tpu.distributions import (
+from mava_jax.distributions import (
     Categorical,
     MaskedCategorical,
     MaskedEpsGreedy,
@@ -105,7 +105,7 @@ def test_sample_from_noise_matches_sample():
     import jax.numpy as jnp
     import numpy as np
 
-    from mava_tpu.distributions import Categorical, TanhNormal
+    from mava_jax.distributions import Categorical, TanhNormal
 
     key = jax.random.PRNGKey(7)
     logits = jax.random.normal(key, (6, 3, 5))
@@ -131,8 +131,8 @@ def test_log_prob_from_params_matches_distribution_log_prob():
     import jax.numpy as jnp
     import numpy as np
 
-    from mava_tpu.distributions import MaskedCategorical, TanhNormal
-    from mava_tpu.networks.factory import make_log_prob_from_params
+    from mava_jax.distributions import MaskedCategorical, TanhNormal
+    from mava_jax.networks.factory import make_log_prob_from_params
 
     key = jax.random.PRNGKey(11)
     logits = jax.random.normal(key, (4, 3, 6))
@@ -161,7 +161,7 @@ def test_masked_greedy_matches_eps_greedy_mode():
     import jax.numpy as jnp
     import numpy as np
 
-    from mava_tpu.distributions import MaskedEpsGreedy, masked_greedy
+    from mava_jax.distributions import MaskedEpsGreedy, masked_greedy
 
     q = jax.random.normal(jax.random.PRNGKey(0), (5, 3, 7))
     mask = jax.random.bernoulli(jax.random.PRNGKey(1), 0.6, (5, 3, 7))

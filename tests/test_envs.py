@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mava_tpu.envs.rware import RobotWarehouse
-from mava_tpu.envs.wrappers import (
+from mava_jax.envs.rware import RobotWarehouse
+from mava_jax.envs.wrappers import (
     AgentIDWrapper,
     AutoResetWrapper,
     GlobalStateWrapper,

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mava_tpu.envs.cleaner import Cleaner
-from mava_tpu.envs.connector import MaConnector
-from mava_tpu.envs.gigastep import Gigastep
+from mava_jax.envs.cleaner import Cleaner
+from mava_jax.envs.connector import MaConnector
+from mava_jax.envs.gigastep import Gigastep
 
 
 def test_cleaner_cleans_and_wins():

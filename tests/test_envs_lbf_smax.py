@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mava_tpu.envs.lbf import LevelBasedForaging
-from mava_tpu.envs.matrax import Matrax
-from mava_tpu.envs.smax import Smax
+from mava_jax.envs.lbf import LevelBasedForaging
+from mava_jax.envs.matrax import Matrax
+from mava_jax.envs.smax import Smax
 
 
 def test_lbf_coop_load_eats_and_rewards():
@@ -151,8 +151,8 @@ def test_matrax_custom_payoff_validation():
 
 
 def test_matrax_pd_scenario_via_factory():
-    from mava_tpu import envs as environments
-    from mava_tpu.utils.config import load_config
+    from mava_jax import envs as environments
+    from mava_jax.utils.config import load_config
 
     cfg = load_config(
         "default_ff_ippo", ["env=matrax", "env/scenario=matrax-pd"]

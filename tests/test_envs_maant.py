@@ -13,7 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mava_tpu.envs.maant import (
+from mava_jax.envs.maant import (
     _DT,
     _GRAVITY,
     _LOWER_LEN,

@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mava_tpu.envs.macheetah import _DT, _GRAVITY, _TOPOLOGY, MaCheetah
+from mava_jax.envs.macheetah import _DT, _GRAVITY, _TOPOLOGY, MaCheetah
 
 
 def test_tree_kinematics_hand_computed():

@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mava_tpu.envs.mahopper import _DT, _GRAVITY, MaHopper, MaHopperState
+from mava_jax.envs.mahopper import _DT, _GRAVITY, MaHopper, MaHopperState
 
 
 def _airborne(env, dy=3.0):

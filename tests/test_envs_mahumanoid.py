@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mava_tpu.envs.mahumanoid import (
+from mava_jax.envs.mahumanoid import (
     _DT,
     _GRAVITY,
     _HEAD_OFF,

@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import mava_tpu.envs.mareacher as mr
-from mava_tpu.envs.mareacher import MaReacher
+import mava_jax.envs.mareacher as mr
+from mava_jax.envs.mareacher import MaReacher
 
 
 def test_mass_matrix_matches_closed_form_two_link():

@@ -13,7 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mava_tpu.envs.maswimmer import _DT, MaSwimmer
+from mava_jax.envs.maswimmer import _DT, MaSwimmer
 
 
 @functools.partial(jax.jit, static_argnums=(0, 3))

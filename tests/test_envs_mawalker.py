@@ -13,7 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mava_tpu.envs.mawalker import _WALKER_TOPOLOGY, MaWalker
+from mava_jax.envs.mawalker import _WALKER_TOPOLOGY, MaWalker
 
 
 def test_biped_branching_kinematics():

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mava_tpu.envs.rware import FORWARD, NOOP, TOGGLE, RobotWarehouse
-from mava_tpu.envs.smax import Smax
+from mava_jax.envs.rware import FORWARD, NOOP, TOGGLE, RobotWarehouse
+from mava_jax.envs.smax import Smax
 
 
 def test_rware_carried_shelf_travels_with_agent():

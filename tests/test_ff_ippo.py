@@ -4,11 +4,11 @@ The reference tests run each system's real `run_experiment` with a shrunken conf
 (`test/integration_test.py:35-46`); same strategy here, plus it exercises the real
 multi-device shard_map path (which the reference never tests, SURVEY.md §4)."""
 
-from mava_tpu.utils.config import load_config
+from mava_jax.utils.config import load_config
 
 
 def test_ff_ippo_runs_multidevice(fast_config_overrides):
-    from mava_tpu.systems.ppo.ff_ippo import run_experiment
+    from mava_jax.systems.ppo.ff_ippo import run_experiment
 
     cfg = load_config(
         "default_ff_ippo", fast_config_overrides + ["env.kwargs.time_limit=16"]
@@ -24,10 +24,10 @@ def test_rollout_unroll_is_math_identical():
     import jax
     import numpy as np
 
-    from mava_tpu import envs as environments
-    from mava_tpu.parallel import make_mesh, num_learner_devices
-    from mava_tpu.systems.ppo.ff_ippo import learner_setup
-    from mava_tpu.utils.config import load_config
+    from mava_jax import envs as environments
+    from mava_jax.parallel import make_mesh, num_learner_devices
+    from mava_jax.systems.ppo.ff_ippo import learner_setup
+    from mava_jax.utils.config import load_config
 
     def build(unroll):
         cfg = load_config(

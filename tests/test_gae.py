@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from mava_tpu.ops import calculate_gae
-from mava_tpu.ops.gae import calculate_gae_with_next_done
+from mava_jax.ops import calculate_gae
+from mava_jax.ops.gae import calculate_gae_with_next_done
 
 
 def _reference_gae(rewards, values, dones, last_val, gamma, lam):
@@ -85,7 +85,7 @@ def test_select_along_last_matches_take_along_axis():
     import jax
     import numpy as np
 
-    from mava_tpu.utils.jax_utils import select_along_last
+    from mava_jax.utils.jax_utils import select_along_last
 
     key = jax.random.PRNGKey(0)
     vals = jax.random.normal(key, (7, 3, 5))
@@ -98,7 +98,7 @@ def test_pack_pytree_rows_bit_exact_roundtrip():
     import jax
     import numpy as np
 
-    from mava_tpu.utils.jax_utils import pack_pytree_rows
+    from mava_jax.utils.jax_utils import pack_pytree_rows
 
     n = 16
     key = jax.random.PRNGKey(3)

@@ -1,14 +1,10 @@
-"""assoc vs sequential GAE equivalence (VERDICT r4 next-1).
+"""assoc vs sequential GAE equivalence.
 
-The associative-scan GAE crashes the TPU compiler when lifted by a seed vmap at
-specific shapes (`fusion_util.cc TransformWindow`, BASELINE.md r4 j104/j105), so
-`ops/gae.py` ships the reference's reverse-scan formulation behind
-`impl="sequential"` and the seed-vmapped advanced-usage programs default to it.
-These tests pin (a) the two implementations agree to float-associativity
-tolerance, (b) the sequential impl survives exactly the lift that crashed on
-TPU (seed vmap at the j104 (T, E=256, A=4) shape runs on the CPU mesh for both
-impls — the crash is a TPU backend bug, not a semantics difference), and (c)
-the defaulting: stock systems read 'assoc', seed programs force 'sequential'.
+`ops/gae.py` solves GAE with an associative scan by default and ships the
+reference's reverse-scan formulation behind `impl="sequential"`. These tests
+pin (a) the two implementations agree to float-associativity tolerance, (b)
+both survive a seed vmap at a (T, E=256, A=4) shape, and (c) the defaulting:
+stock systems and the seed-vmapped programs read 'assoc' unless set.
 """
 
 import jax
@@ -16,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mava_tpu.ops import calculate_gae
-from mava_tpu.ops.gae import calculate_gae_with_next_done
+from mava_jax.ops import calculate_gae
+from mava_jax.ops.gae import calculate_gae_with_next_done
 
 
 def _random_inputs(rng, shape):
@@ -57,9 +53,8 @@ def test_assoc_equals_sequential_next_done_variant():
 
 @pytest.mark.parametrize("impl", ["assoc", "sequential"])
 def test_seed_vmapped_gae_at_the_j104_shape(impl):
-    """The exact lift that SIGABRTed the TPU backend (3 vmapped seeds over a
-    (T, 256 envs, 4 agents) GAE, r4 j104) — jitted + vmapped here on CPU for
-    both impls; per-seed outputs must equal the unvmapped ones."""
+    """3 vmapped seeds over a (T, 256 envs, 4 agents) GAE, jitted, for both
+    impls; per-seed outputs must equal the unvmapped ones."""
     rng = np.random.RandomState(2)
     seeds, T, E, A = 3, 8, 256, 4
     rewards = rng.randn(seeds, T, E, A).astype(np.float32)
@@ -84,12 +79,13 @@ def test_unknown_impl_raises():
 
 
 def test_seed_programs_default_to_sequential():
-    """ff_ippo_vmap_seeds.learner_setup (shared by seeds/sweep/MAPPO/PBT) must
-    force gae_impl='sequential' unless the user overrides it."""
-    from mava_tpu import envs as environments
-    from mava_tpu.advanced_usage import ff_ippo_vmap_seeds as vs
-    from mava_tpu.parallel import make_mesh, num_learner_devices
-    from mava_tpu.utils.config import load_config
+    """ff_ippo_vmap_seeds.learner_setup (shared by seeds/sweep/MAPPO/PBT) no
+    longer forces gae_impl='sequential': seed-lifted programs take the stock
+    system.gae_impl ('assoc' unless set), and an explicit setting wins."""
+    from mava_jax import envs as environments
+    from mava_jax.advanced_usage import ff_ippo_vmap_seeds as vs
+    from mava_jax.parallel import make_mesh, num_learner_devices
+    from mava_jax.utils.config import load_config
 
     cfg = load_config(
         "default_ff_ippo",
@@ -107,9 +103,9 @@ def test_seed_programs_default_to_sequential():
     assert cfg.system.get("gae_impl", "assoc") == "assoc"  # stock default
     env, _ = environments.make(cfg)
     vs.learner_setup(env, jax.random.PRNGKey(0), cfg, mesh, num_seeds=2)
-    assert cfg.system.gae_impl == "sequential"
+    assert cfg.system.get("gae_impl", "assoc") == "assoc"
 
-    # Explicit user override wins.
+    # Explicit user setting wins.
     cfg2 = load_config(
         "default_ff_ippo",
         [
@@ -117,7 +113,7 @@ def test_seed_programs_default_to_sequential():
             "arch.num_envs=2",
             "system.rollout_length=4",
             "system.num_updates=1",
-            "+system.gae_impl=assoc",
+            "+system.gae_impl=sequential",
             "logger.use_console=False",
         ],
     )
@@ -125,4 +121,4 @@ def test_seed_programs_default_to_sequential():
     cfg2.system.num_updates_per_eval = 1
     env2, _ = environments.make(cfg2)
     vs.learner_setup(env2, jax.random.PRNGKey(0), cfg2, mesh, num_seeds=2)
-    assert cfg2.system.gae_impl == "assoc"
+    assert cfg2.system.gae_impl == "sequential"

@@ -37,8 +37,8 @@ pytestmark = [
 
 
 def test_ff_ippo_learns_matrax_penalty():
-    from mava_tpu.systems.ppo.ff_ippo import run_experiment
-    from mava_tpu.utils.config import load_config
+    from mava_jax.systems.ppo.ff_ippo import run_experiment
+    from mava_jax.utils.config import load_config
 
     cfg = load_config(
         "default_ff_ippo",
@@ -61,8 +61,8 @@ def test_ff_ippo_learns_matrax_penalty():
 
 
 def test_rec_iql_learns_matrax_climbing():
-    from mava_tpu.systems.q_learning.rec_iql import run_experiment
-    from mava_tpu.utils.config import load_config
+    from mava_jax.systems.q_learning.rec_iql import run_experiment
+    from mava_jax.utils.config import load_config
 
     cfg = load_config(
         "default_rec_iql",

@@ -4,8 +4,8 @@ import json
 
 import numpy as np
 
-from mava_tpu.utils.config import load_config
-from mava_tpu.utils.logger import JsonLogger, LogEvent, MavaLogger, describe
+from mava_jax.utils.config import load_config
+from mava_jax.utils.logger import JsonLogger, LogEvent, MavaLogger, describe
 
 
 def _cfg(tmp_path, **logger_overrides):
@@ -161,7 +161,7 @@ def test_neptune_logger_main_metric_filtering(tmp_path, monkeypatch):
     main-metric filtering and append() dispatch match the reference semantics
     (`mava/utils/logger.py:150-193`)."""
     mod = _install_fake_neptune(monkeypatch)
-    from mava_tpu.utils.logger import NeptuneLogger
+    from mava_jax.utils.logger import NeptuneLogger
 
     cfg = _cfg(tmp_path)
     cfg.logger.kwargs["neptune_project"] = "org/proj"
@@ -193,7 +193,7 @@ def test_neptune_logger_zip_upload_on_stop(tmp_path, monkeypatch):
     import zipfile
 
     mod = _install_fake_neptune(monkeypatch)
-    from mava_tpu.utils.logger import NeptuneLogger
+    from mava_jax.utils.logger import NeptuneLogger
 
     cfg = _cfg(tmp_path)
     cfg.logger.kwargs["upload_json_data"] = True

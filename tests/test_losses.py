@@ -4,7 +4,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from mava_tpu.ops import clipped_ppo_policy_loss, clipped_value_loss
+from mava_jax.ops import clipped_ppo_policy_loss, clipped_value_loss
 
 
 def test_policy_loss_matches_hand_computation():
@@ -66,8 +66,8 @@ def test_entropy_coefficient_schedule():
     import optax
     from types import SimpleNamespace
 
-    from mava_tpu.utils.config import Config
-    from mava_tpu.utils.training import entropy_coefficient, make_optimizer
+    from mava_jax.utils.config import Config
+    from mava_jax.utils.training import entropy_coefficient, make_optimizer
 
     system = Config(
         {
@@ -104,8 +104,8 @@ def test_entropy_coefficient_with_decayed_adam_opt_state():
     import jax.numpy as jnp
     import optax
 
-    from mava_tpu.utils.config import Config
-    from mava_tpu.utils.training import (
+    from mava_jax.utils.config import Config
+    from mava_jax.utils.training import (
         entropy_coefficient,
         make_learning_rate,
         make_optimizer,

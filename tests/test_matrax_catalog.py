@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from mava_tpu.envs.matrax import Matrax
-from mava_tpu.envs.matrax_catalog import (
+from mava_jax.envs.matrax import Matrax
+from mava_jax.envs.matrax_catalog import (
     _CONFLICT,
     _NO_CONFLICT,
     canonical_id,
@@ -86,8 +86,8 @@ def test_contradicting_task_name_pin_fails_loudly():
     """A CLI task_name that contradicts a scenario's task_config pin must raise
     (the engine would train the pinned task while the JSON evidence is labeled
     with the CLI name)."""
-    from mava_tpu import envs as environments
-    from mava_tpu.utils.config import load_config
+    from mava_jax import envs as environments
+    from mava_jax.utils.config import load_config
 
     cfg = load_config(
         "default_ff_ippo",
@@ -106,8 +106,8 @@ def test_reference_matrax_config_ports_verbatim():
     """`env.scenario.task_name=Conflict-12-stateless-v0` — the reference's
     override surface (`mava/configs/env/matrax.yaml`) — builds the env through
     the factory with no scenario yaml per id."""
-    from mava_tpu import envs as environments
-    from mava_tpu.utils.config import load_config
+    from mava_jax import envs as environments
+    from mava_jax.utils.config import load_config
 
     cfg = load_config(
         "default_ff_ippo",

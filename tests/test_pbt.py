@@ -11,13 +11,13 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from mava_tpu.advanced_usage.ff_ippo_pbt import (
+from mava_jax.advanced_usage.ff_ippo_pbt import (
     pbt_exploit_explore,
     resolve_rank_metric,
 )
-from mava_tpu.systems.ppo.types import OptStates, Params
-from mava_tpu.utils.config import Config, load_config
-from mava_tpu.utils.training import make_swept_optimizer, set_peak_lr
+from mava_jax.systems.ppo.types import OptStates, Params
+from mava_jax.utils.config import Config, load_config
+from mava_jax.utils.training import make_swept_optimizer, set_peak_lr
 
 
 def _population(pop=8, seed=0):
@@ -131,7 +131,7 @@ def test_rec_pbt_end_to_end_on_win_rate_env(fast_config_overrides):
     'win_rate'. Covers the full crash path from the round-2 hardware run:
     evaluator output -> rank metric lookup -> exploit/explore (2 eval
     intervals so the PBT step itself executes once)."""
-    from mava_tpu.advanced_usage import rec_ippo_pbt
+    from mava_jax.advanced_usage import rec_ippo_pbt
 
     cfg = load_config(
         "default_rec_ippo",
@@ -152,7 +152,7 @@ def test_ff_pbt_fixed_lr_control(fast_config_overrides):
     """`+system.pbt_exploit=False` turns the PBT runner into a fixed-lr
     population control (same compiled program, no exploit/explore) — the A/B
     arm of the PBT-utility comparison."""
-    from mava_tpu.advanced_usage import ff_ippo_pbt
+    from mava_jax.advanced_usage import ff_ippo_pbt
 
     cfg = load_config(
         "default_ff_ippo",
@@ -173,8 +173,8 @@ def test_pbt_rejects_seed_shards():
     no-op (review r4)."""
     import pytest
 
-    from mava_tpu.advanced_usage.ff_ippo_pbt import run_experiment
-    from mava_tpu.utils.config import load_config
+    from mava_jax.advanced_usage.ff_ippo_pbt import run_experiment
+    from mava_jax.utils.config import load_config
 
     cfg = load_config(
         "default_ff_ippo",

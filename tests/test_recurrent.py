@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mava_tpu.networks import ScannedRNN
+from mava_jax.networks import ScannedRNN
 
 
 def _setup(T=6, B=3, A=2, F=8, H=8, seed=0):
@@ -97,9 +97,9 @@ def test_collect_carries_matches_stepwise_critic():
     import jax.numpy as jnp
     import numpy as np
 
-    from mava_tpu.networks import RecurrentValueNet, ScannedRNN
-    from mava_tpu.networks.factory import make_torso
-    from mava_tpu.types import Observation
+    from mava_jax.networks import RecurrentValueNet, ScannedRNN
+    from mava_jax.networks.factory import make_torso
+    from mava_jax.types import Observation
 
     T, E, A, F, H = 7, 3, 2, 5, 8
     torso = {"type": "MLPTorso", "layer_sizes": [H]}
@@ -151,7 +151,7 @@ def test_fused_gru_matches_flax_gru():
     transformation, CLAUDE.md invariant)."""
     from flax import linen as nn
 
-    from mava_tpu.networks.actor_critic import FusedGRUCell
+    from mava_jax.networks.actor_critic import FusedGRUCell
 
     hidden, feat, batch = 32, 24, 7
     key = jax.random.PRNGKey(0)
@@ -187,7 +187,7 @@ def test_fused_gru_matches_flax_gru():
 def test_fused_gru_recurrent_init_blocks_are_orthogonal():
     """Each (h,h) gate block of the fused recurrent kernel is orthogonal, matching
     flax GRUCell's per-gate orthogonal() recurrent init (not one fused draw)."""
-    from mava_tpu.networks.actor_critic import FusedGRUCell
+    from mava_jax.networks.actor_critic import FusedGRUCell
 
     hidden, feat = 16, 16
     cell = FusedGRUCell()
@@ -206,11 +206,8 @@ def test_fused_gru_recurrent_init_blocks_are_orthogonal():
 def test_hoisted_scan_matches_legacy_cell_scan():
     """The hoisted ScannedRNN (input projection lifted out of the scan as one
     wide matmul) computes the same function — outputs, final carry, collected
-    carries AND gradients — as the legacy per-step FusedGRUCell scan, given the
-    same weights (distribution-preserving perf transformation, CLAUDE.md
-    invariant)."""
-    from mava_tpu.networks import actor_critic
-
+    carries AND gradients — as the plain per-step cell path, which reads the
+    same params (distribution-preserving perf transformation)."""
     T, B, A, F, H = 6, 3, 2, 5, 8
     xs = jax.random.normal(jax.random.PRNGKey(0), (T, B, A, F))
     resets = jax.random.bernoulli(jax.random.PRNGKey(1), 0.3, (T, B, A))
@@ -218,51 +215,30 @@ def test_hoisted_scan_matches_legacy_cell_scan():
 
     for collect in (False, True):
         hoisted = ScannedRNN(hidden_state_dim=H, collect_carries=collect)
-        params_h = hoisted.init(jax.random.PRNGKey(2), carry0, (xs, resets))
+        cell = ScannedRNN(hidden_state_dim=H, collect_carries=collect, gru_impl="cell")
+        params = hoisted.init(jax.random.PRNGKey(2), carry0, (xs, resets))
+        assert jax.tree.structure(params) == jax.tree.structure(
+            cell.init(jax.random.PRNGKey(2), carry0, (xs, resets))
+        )
 
-        assert actor_critic.resolve_gru_impl() == "hoisted"  # "auto" off-TPU
-        prev_impl = actor_critic.GRU_IMPL
-        actor_critic.GRU_IMPL = "cell"
-        try:
-            legacy = ScannedRNN(hidden_state_dim=H, collect_carries=collect)
-            params_c = legacy.init(jax.random.PRNGKey(3), carry0, (xs, resets))
-            # Graft the hoisted weights into the legacy tree by param name
-            # (wi/bi/wh/bhn — same leaves, different nesting).
-            by_name = {
-                path[-1].key: leaf
-                for path, leaf in jax.tree_util.tree_flatten_with_path(params_h)[0]
-            }
-            params_c = jax.tree_util.tree_map_with_path(
-                lambda path, leaf: by_name[path[-1].key], params_c
-            )
-
-            def loss_c(p):
-                final, ys = legacy.apply(p, carry0, (xs, resets))
-                return jnp.sum(final**2) + sum(jnp.sum(y**2) for y in jax.tree.leaves(ys))
-
-            out_c = legacy.apply(params_c, carry0, (xs, resets))
-            grad_c = jax.grad(loss_c)(params_c)
-        finally:
-            actor_critic.GRU_IMPL = prev_impl
-
-        def loss_h(p):
-            final, ys = hoisted.apply(p, carry0, (xs, resets))
+        def loss(net, p):
+            final, ys = net.apply(p, carry0, (xs, resets))
             return jnp.sum(final**2) + sum(jnp.sum(y**2) for y in jax.tree.leaves(ys))
 
-        out_h = hoisted.apply(params_h, carry0, (xs, resets))
-        grad_h = jax.grad(loss_h)(params_h)
+        out_h = hoisted.apply(params, carry0, (xs, resets))
+        out_c = cell.apply(params, carry0, (xs, resets))
+        grad_h = jax.grad(lambda p: loss(hoisted, p))(params)
+        grad_c = jax.grad(lambda p: loss(cell, p))(params)
 
         for g, w in zip(jax.tree.leaves(out_h), jax.tree.leaves(out_c)):
             np.testing.assert_allclose(
                 np.asarray(g), np.asarray(w), rtol=1e-5, atol=1e-6
             )
-        grad_h_by_name = {
-            path[-1].key: leaf
-            for path, leaf in jax.tree_util.tree_flatten_with_path(grad_h)[0]
-        }
         for path, leaf in jax.tree_util.tree_flatten_with_path(grad_c)[0]:
             np.testing.assert_allclose(
-                np.asarray(grad_h_by_name[path[-1].key]),
+                np.asarray(
+                    grad_h["params"][path[-1].key]
+                ),
                 np.asarray(leaf),
                 rtol=1e-5,
                 atol=1e-6,
@@ -270,85 +246,13 @@ def test_hoisted_scan_matches_legacy_cell_scan():
             )
 
 
-def test_pallas_impl_matches_hoisted_through_scannedrnn():
-    """GRU_IMPL='pallas' (fused Pallas recurrence, interpret mode on CPU) is a
-    drop-in for the hoisted scan: same param tree, same outputs/carries/grads."""
-    from mava_tpu.networks import actor_critic
-
-    T, B, A, F, H = 6, 3, 2, 5, 8
-    xs = jax.random.normal(jax.random.PRNGKey(7), (T, B, A, F))
-    resets = jax.random.bernoulli(jax.random.PRNGKey(8), 0.3, (T, B, A))
-    carry0 = ScannedRNN.initialize_carry((B, A), H)
-
-    for collect in (False, True):
-        rnn = ScannedRNN(hidden_state_dim=H, collect_carries=collect)
-        params = rnn.init(jax.random.PRNGKey(9), carry0, (xs, resets))
-
-        def loss(p):
-            final, ys = rnn.apply(p, carry0, (xs, resets))
-            return jnp.sum(final**2) + sum(
-                jnp.sum(y**2) for y in jax.tree.leaves(ys)
-            )
-
-        out_h = rnn.apply(params, carry0, (xs, resets))
-        grad_h = jax.grad(loss)(params)
-
-        assert actor_critic.resolve_gru_impl() == "hoisted"  # "auto" off-TPU
-        prev_impl = actor_critic.GRU_IMPL
-        actor_critic.GRU_IMPL = "pallas"
-        try:
-            out_p = rnn.apply(params, carry0, (xs, resets))
-            grad_p = jax.grad(loss)(params)
-        finally:
-            actor_critic.GRU_IMPL = prev_impl
-
-        for g, w in zip(jax.tree.leaves(out_p), jax.tree.leaves(out_h)):
-            np.testing.assert_allclose(
-                np.asarray(g), np.asarray(w), rtol=1e-5, atol=1e-6
-            )
-        for g, w in zip(jax.tree.leaves(grad_p), jax.tree.leaves(grad_h)):
-            np.testing.assert_allclose(
-                np.asarray(g), np.asarray(w), rtol=1e-5, atol=1e-6
-            )
-
-
-def test_pallas_impl_broadcast_resets():
-    """rec-IQL feeds resets with a trailing singleton agent axis — (T, B, 1)
-    against (T, B, A, F) inputs — relying on the scan path's carry broadcast.
-    The pallas branch must expand that to one flag per flattened batch row
-    (regression: it used to reshape resets directly and crash)."""
-    from mava_tpu.networks import actor_critic
-
-    T, B, A, F, H = 5, 3, 4, 6, 8
-    xs = jax.random.normal(jax.random.PRNGKey(11), (T, B, A, F))
-    resets = jax.random.bernoulli(jax.random.PRNGKey(12), 0.4, (T, B, 1))
-    carry0 = ScannedRNN.initialize_carry((B, A), H)
-
-    rnn = ScannedRNN(hidden_state_dim=H)
-    params = rnn.init(jax.random.PRNGKey(13), carry0, (xs, resets))
-
-    out_h = rnn.apply(params, carry0, (xs, resets))
-    prev_impl = actor_critic.GRU_IMPL
-    actor_critic.GRU_IMPL = "pallas"
-    try:
-        out_p = rnn.apply(params, carry0, (xs, resets))
-    finally:
-        actor_critic.GRU_IMPL = prev_impl
-    for g, w in zip(jax.tree.leaves(out_p), jax.tree.leaves(out_h)):
-        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=1e-5, atol=1e-6)
-
-
-def test_gru_impl_isolation_across_instances():
+def test_gru_impl_isolation_across_instances(monkeypatch):
     """Two ScannedRNN instances with DIFFERENT `gru_impl` fields coexist in one
-    process (VERDICT r3 #5: the impl used to be a mutable module global, so two
-    recurrent systems built with different settings silently shared whichever
-    was set last). Same params serve both; interleaved applies each trace their
-    own path (proved by a spy on the pallas kernel); the module default is
-    never mutated."""
-    from mava_tpu.networks import actor_critic
-    from mava_tpu.ops import pallas_gru
-
-    assert actor_critic.GRU_IMPL == "auto"  # package code must never mutate it
+    process (the impl used to be a mutable module global, so two recurrent
+    systems built with different settings silently shared whichever was set
+    last). Same params serve both; interleaved applies each trace their own
+    path (proved by a spy on the impl each trace resolves)."""
+    from mava_jax.networks import actor_critic
 
     T, B, A, F, H = 6, 3, 2, 5, 8
     xs = jax.random.normal(jax.random.PRNGKey(21), (T, B, A, F))
@@ -356,48 +260,41 @@ def test_gru_impl_isolation_across_instances():
     carry0 = ScannedRNN.initialize_carry((B, A), H)
 
     rnn_hoisted = ScannedRNN(hidden_state_dim=H, gru_impl="hoisted")
-    rnn_pallas = ScannedRNN(hidden_state_dim=H, gru_impl="pallas")
+    rnn_cell = ScannedRNN(hidden_state_dim=H, gru_impl="cell")
     params = rnn_hoisted.init(jax.random.PRNGKey(23), carry0, (xs, resets))
 
-    calls = []
-    orig = pallas_gru.gru_sequence
+    traced = []
+    orig = actor_critic.resolve_gru_impl
 
-    def spy(*args, **kwargs):
-        calls.append(1)
-        return orig(*args, **kwargs)
+    def spy(impl=None):
+        traced.append(orig(impl))
+        return traced[-1]
 
-    pallas_gru.gru_sequence = spy
-    try:
-        out_p1 = rnn_pallas.apply(params, carry0, (xs, resets))
-        n_after_pallas = len(calls)
-        out_h = rnn_hoisted.apply(params, carry0, (xs, resets))
-        n_after_hoisted = len(calls)
-        out_p2 = rnn_pallas.apply(params, carry0, (xs, resets))
-    finally:
-        pallas_gru.gru_sequence = orig
+    monkeypatch.setattr(actor_critic, "resolve_gru_impl", spy)
+    out_c1 = rnn_cell.apply(params, carry0, (xs, resets))
+    out_h = rnn_hoisted.apply(params, carry0, (xs, resets))
+    out_c2 = rnn_cell.apply(params, carry0, (xs, resets))
 
-    # The pallas instance traced the kernel; the hoisted instance did not —
-    # even though it ran BETWEEN two pallas applies of the same params.
-    assert n_after_pallas > 0
-    assert n_after_hoisted == n_after_pallas
-    assert len(calls) > n_after_hoisted
-
-    for a, b in zip(jax.tree.leaves(out_p1), jax.tree.leaves(out_h)):
+    # Each instance traced its own path, even with the hoisted apply BETWEEN
+    # two cell applies of the same params.
+    assert traced == ["cell", "hoisted", "cell"]
+    for a, b in zip(jax.tree.leaves(out_c1), jax.tree.leaves(out_h)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-6)
-    for a, b in zip(jax.tree.leaves(out_p1), jax.tree.leaves(out_p2)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-6)
-
-    assert actor_critic.GRU_IMPL == "auto"
+    for a, b in zip(jax.tree.leaves(out_c1), jax.tree.leaves(out_c2)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_resolve_gru_impl_platform_override():
-    """resolve_gru_impl resolves "auto" against the platform the MESH runs on
-    when given one (how the systems call it at build time) instead of the
-    process default backend — the ADVICE r2 trace-time-resolution fix."""
-    from mava_tpu.networks.actor_critic import resolve_gru_impl
+    """`auto` (older configs) and None resolve to "hoisted" on every platform;
+    a concrete impl passes through; an impl that no longer exists is refused
+    rather than silently replaced."""
+    import pytest
 
-    assert resolve_gru_impl("auto", platform="tpu") == "pallas"
-    assert resolve_gru_impl("auto", platform="cpu") == "hoisted"
-    assert resolve_gru_impl(None, platform="tpu") == "pallas"  # default is auto
-    assert resolve_gru_impl("cell", platform="tpu") == "cell"  # concrete wins
-    assert resolve_gru_impl("auto") == "hoisted"  # CPU test process default
+    from mava_jax.networks.actor_critic import resolve_gru_impl
+
+    assert resolve_gru_impl("auto") == "hoisted"
+    assert resolve_gru_impl(None) == "hoisted"
+    assert resolve_gru_impl("hoisted") == "hoisted"
+    assert resolve_gru_impl("cell") == "cell"
+    with pytest.raises(ValueError, match="pallas"):
+        resolve_gru_impl("pallas")

@@ -1,4 +1,4 @@
-"""Env viewers (`mava_tpu/envs/render.py`): every registered renderer produces
+"""Env viewers (`mava_jax/envs/render.py`): every registered renderer produces
 RGB frames from real reset/step states, and GIF export writes a file."""
 
 import os
@@ -7,22 +7,22 @@ import jax
 import numpy as np
 import pytest
 
-from mava_tpu import specs
-from mava_tpu.envs.cleaner import Cleaner
-from mava_tpu.envs.connector import MaConnector
-from mava_tpu.envs.gigastep import Gigastep
-from mava_tpu.envs.lbf import LevelBasedForaging
-from mava_tpu.envs.maant import MaAnt
-from mava_tpu.envs.macheetah import MaCheetah
-from mava_tpu.envs.mahopper import MaHopper
-from mava_tpu.envs.mahumanoid import MaHumanoid
-from mava_tpu.envs.mareacher import MaReacher
-from mava_tpu.envs.maswarm import MaSwarm
-from mava_tpu.envs.maswimmer import MaSwimmer
-from mava_tpu.envs.mawalker import MaWalker
-from mava_tpu.envs.render import render_frame, rollout_episode, save_gif
-from mava_tpu.envs.rware import RobotWarehouse
-from mava_tpu.envs.smax import Smax
+from mava_jax import specs
+from mava_jax.envs.cleaner import Cleaner
+from mava_jax.envs.connector import MaConnector
+from mava_jax.envs.gigastep import Gigastep
+from mava_jax.envs.lbf import LevelBasedForaging
+from mava_jax.envs.maant import MaAnt
+from mava_jax.envs.macheetah import MaCheetah
+from mava_jax.envs.mahopper import MaHopper
+from mava_jax.envs.mahumanoid import MaHumanoid
+from mava_jax.envs.mareacher import MaReacher
+from mava_jax.envs.maswarm import MaSwarm
+from mava_jax.envs.maswimmer import MaSwimmer
+from mava_jax.envs.mawalker import MaWalker
+from mava_jax.envs.render import render_frame, rollout_episode, save_gif
+from mava_jax.envs.rware import RobotWarehouse
+from mava_jax.envs.smax import Smax
 
 ENVS = [
     RobotWarehouse(

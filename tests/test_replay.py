@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mava_tpu.replay import make_item_buffer, make_trajectory_buffer
+from mava_jax.replay import make_item_buffer, make_trajectory_buffer
 
 
 def _make(max_len=16, seq=4, add_b=2, sample_b=8, min_len=4):
@@ -92,7 +92,7 @@ def test_buffers_jit_and_donate():
 def test_vault_roundtrip(tmp_path):
     import os
 
-    from mava_tpu.replay import Vault
+    from mava_jax.replay import Vault
 
     cwd = os.getcwd()
     os.chdir(tmp_path)
@@ -114,9 +114,9 @@ def test_vault_named_leaves_nested(tmp_path):
     shape the experience-recording system writes)."""
     import os
 
-    from mava_tpu.replay import Vault
-    from mava_tpu.systems.ppo.types import PPOTransition
-    from mava_tpu.types import Observation
+    from mava_jax.replay import Vault
+    from mava_jax.systems.ppo.types import PPOTransition
+    from mava_jax.types import Observation
 
     tr = PPOTransition(
         done=jnp.zeros((2, 4, 3)),

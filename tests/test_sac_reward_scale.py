@@ -9,10 +9,10 @@ ONLY the critic target (same data, same RNG -> different Q params).
 
 import jax
 
-from mava_tpu.parallel import make_mesh, num_learner_devices
-from mava_tpu.systems.sac import ff_isac
-from mava_tpu.utils.config import load_config
-from mava_tpu.utils.timestep_checker import check_total_timesteps
+from mava_jax.parallel import make_mesh, num_learner_devices
+from mava_jax.systems.sac import ff_isac
+from mava_jax.utils.config import load_config
+from mava_jax.utils.timestep_checker import check_total_timesteps
 
 TINY = [
     "system.num_updates=4",
@@ -68,7 +68,7 @@ def test_global_state_dedup_roundtrip():
     is lossless: GlobalStateWrapper gives every agent the same vector."""
     import jax.numpy as jnp
 
-    from mava_tpu.types import ObservationGlobalState
+    from mava_jax.types import ObservationGlobalState
 
     obs = ObservationGlobalState(
         agents_view=jnp.arange(24.0).reshape(2, 4, 3),
@@ -92,7 +92,7 @@ def test_q_divergence_warning_fires_on_synthetic_divergence():
     import jax.numpy as jnp
     import pytest
 
-    from mava_tpu.utils.training import warn_q_divergence
+    from mava_jax.utils.training import warn_q_divergence
 
     divergent = {"q1_a_vals": jnp.float32(12_000.0), "q2_a_vals": jnp.float32(9.0)}
     with pytest.warns(UserWarning, match="reward_scale"):

@@ -1,8 +1,8 @@
 """Seed-SHARDED multi-seed training equals the unsharded vmap-seeds program.
 
-`make_seed_sharded_mesh` answers the measured j362 boundary (BASELINE.md):
-vmapping seeds replicates the replay buffer per seed on EVERY device, so a
-16 GB chip OOMs at ~3 rec-IQL seeds. Sharding the seed axis over its own mesh
+`make_seed_sharded_mesh` answers the vmap-seeds memory bound: vmapping seeds
+replicates the replay buffer per seed on EVERY device, so device memory caps
+the seed count. Sharding the seed axis over its own mesh
 axis gives each device only `num_seeds / seed_shards` buffers, and — because
 the stock learner's `pmean('data')` reduces over the data axis of a 2-D
 `(seed, data)` mesh — independent seeds never mix gradients, with the stock
@@ -23,8 +23,8 @@ import jax
 import numpy as np
 import pytest
 
-from mava_tpu.parallel import SEED_AXIS, make_mesh, make_seed_sharded_mesh
-from mava_tpu.utils.config import load_config
+from mava_jax.parallel import SEED_AXIS, make_mesh, make_seed_sharded_mesh
+from mava_jax.utils.config import load_config
 
 NUM_SEEDS = 2
 
@@ -60,7 +60,7 @@ def _assert_tree_close(got, want):
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs the 8-device mesh")
 def test_rec_iql_seed_sharded_matches_unsharded_vmap():
-    from mava_tpu.advanced_usage import rec_iql_vmap_seeds as vs
+    from mava_jax.advanced_usage import rec_iql_vmap_seeds as vs
 
     # Sharded: 2 seed groups x 4 data shards on the 8-device mesh.
     cfg_sh = _tiny_iql_cfg()
@@ -103,7 +103,7 @@ def test_rec_iql_seed_sharded_matches_unsharded_vmap():
 def test_isac_seed_sharded_matches_unsharded_vmap():
     """Same claim for the SAC family (explore + one update through the
     per-seed replay buffers)."""
-    from mava_tpu.advanced_usage import ff_isac_vmap_seeds as vs
+    from mava_jax.advanced_usage import ff_isac_vmap_seeds as vs
 
     def tiny_cfg():
         cfg = load_config(
@@ -162,8 +162,8 @@ def test_ff_ippo_seed_sharded_matches_unsharded_vmap():
     """PPO-family seed sharding (r4, API-uniform with the replay families):
     the 2-D (seed, data) mesh placement is distribution-preserving vs the
     unsharded vmap program over the same per-seed data-shard count."""
-    from mava_tpu import envs as environments
-    from mava_tpu.advanced_usage import ff_ippo_vmap_seeds as vs
+    from mava_jax import envs as environments
+    from mava_jax.advanced_usage import ff_ippo_vmap_seeds as vs
 
     def tiny_cfg():
         cfg = load_config(
@@ -222,7 +222,7 @@ def test_rec_iql_seed_sharded_run_experiment_with_eval():
     handoff from the 2-D (seed, data) training mesh into the fresh 1-D
     all-device eval mesh (per-seed params gather, hidden-state resharding,
     seed-sharded loss logging)."""
-    from mava_tpu.advanced_usage import rec_iql_vmap_seeds as vs
+    from mava_jax.advanced_usage import rec_iql_vmap_seeds as vs
 
     cfg = load_config(
         "default_rec_iql",
@@ -255,7 +255,7 @@ def test_isac_sweep_sharded_run_experiment_with_eval():
     path hits the same per-entry buffer HBM scaling as vmap-seeds; the 2-D
     mesh divides it identically. Full run_experiment with sweep_lrs +
     seed_shards=2 through explore, train and eval cycles."""
-    from mava_tpu.advanced_usage import ff_isac_vmap_seeds as vs
+    from mava_jax.advanced_usage import ff_isac_vmap_seeds as vs
 
     cfg = load_config(
         "default_ff_isac",
@@ -287,8 +287,8 @@ def test_make_eval_setup_sizes_eval_for_the_full_device_count():
     devices — the evaluator must size its per-device env batches from the
     EVAL mesh's count or it runs K x the configured episodes (and warns on
     every eval)."""
-    from mava_tpu.advanced_usage.ff_isac_vmap_seeds import make_eval_setup
-    from mava_tpu.evaluator import get_num_eval_envs
+    from mava_jax.advanced_usage.ff_isac_vmap_seeds import make_eval_setup
+    from mava_jax.evaluator import get_num_eval_envs
 
     cfg = _tiny_iql_cfg()
     cfg.arch.num_envs = 2
@@ -323,7 +323,7 @@ def test_ff_ippo_seed_sharded_run_experiment_with_eval(fast_config_overrides):
     """PPO-family seed-sharded entry path end-to-end: run_experiment with
     +system.seed_shards=2 through training and eval cycles (per-seed params
     gather off the sharded seed axis into the 1-D eval mesh)."""
-    from mava_tpu.advanced_usage import ff_ippo_vmap_seeds as vs
+    from mava_jax.advanced_usage import ff_ippo_vmap_seeds as vs
 
     cfg = load_config(
         "default_ff_ippo",

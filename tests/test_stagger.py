@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mava_tpu import envs as environments
-from mava_tpu.envs.stagger import reject_stagger, stagger_env_states
-from mava_tpu.utils.config import load_config
+from mava_jax import envs as environments
+from mava_jax.envs.stagger import reject_stagger, stagger_env_states
+from mava_jax.utils.config import load_config
 
 
 def _batched_reset(env, n, seed=0):
@@ -76,7 +76,7 @@ def test_stagger_zero_offset_env_untouched():
 
 
 def test_ff_ippo_runs_with_stagger(fast_config_overrides):
-    from mava_tpu.systems.ppo import ff_ippo
+    from mava_jax.systems.ppo import ff_ippo
 
     cfg = load_config(
         "default_ff_ippo",
@@ -99,7 +99,7 @@ def test_stagger_on_mesh_sharded_batch():
     """The burn-in must compile and run on MESH-SHARDED states/timesteps (the
     real call site feeds sharded_env_reset outputs): shardings propagate
     through the jitted scan and the offsets still desynchronise."""
-    from mava_tpu.parallel import make_mesh, num_learner_devices, sharded_env_reset
+    from mava_jax.parallel import make_mesh, num_learner_devices, sharded_env_reset
 
     env = _make_env("default_ff_ippo", ["env.kwargs.time_limit=32"])
     mesh = make_mesh()

@@ -3,13 +3,13 @@ shrunken configs (the reference's strategy, `test/integration_test.py`)."""
 
 import pytest
 
-from mava_tpu.utils.config import load_config
+from mava_jax.utils.config import load_config
 
 
 def _run(module_name: str, default: str, overrides):
     import importlib
 
-    module = importlib.import_module(f"mava_tpu.systems.{module_name}")
+    module = importlib.import_module(f"mava_jax.systems.{module_name}")
     cfg = load_config(default, overrides)
     return module.run_experiment(cfg)
 
@@ -160,13 +160,13 @@ def test_store_experience(fast_config_overrides, tmp_path, monkeypatch):
     import os
 
     monkeypatch.chdir(tmp_path)
-    from mava_tpu.utils.config import load_config
+    from mava_jax.utils.config import load_config
 
     cfg = load_config(
         "default_ff_ippo", fast_config_overrides + ["env.kwargs.time_limit=16"]
     )
     cfg.logger.system_name = "store_exp_test"
-    from mava_tpu.advanced_usage.ff_ippo_store_experience import run_experiment
+    from mava_jax.advanced_usage.ff_ippo_store_experience import run_experiment
 
     perf = run_experiment(cfg)
     assert isinstance(perf, float)
@@ -301,9 +301,9 @@ def test_rec_iql_epsilon_schedule_and_global_step_counting():
     import jax.numpy as jnp
     import numpy as np
 
-    from mava_tpu.parallel import make_mesh, num_learner_devices
-    from mava_tpu.systems.q_learning import rec_iql
-    from mava_tpu.utils.config import Config, load_config
+    from mava_jax.parallel import make_mesh, num_learner_devices
+    from mava_jax.systems.q_learning import rec_iql
+    from mava_jax.utils.config import Config, load_config
 
     # Schedule shape (pure function of the global step count).
     cfg_s = SimpleNamespace(system=Config({"eps_min": 0.05, "eps_decay": 1000}))
@@ -344,7 +344,7 @@ def test_rec_iql_epsilon_schedule_and_global_step_counting():
 def test_ff_ippo_vmap_seeds(fast_config_overrides):
     """N independent seeds trained in ONE compiled program (vmap inside shard_map);
     per-seed grad pmean over the mesh axis rides the vmap automatically."""
-    from mava_tpu.advanced_usage.ff_ippo_vmap_seeds import run_experiment
+    from mava_jax.advanced_usage.ff_ippo_vmap_seeds import run_experiment
 
     cfg = load_config(
         "default_ff_ippo",
@@ -355,7 +355,7 @@ def test_ff_ippo_vmap_seeds(fast_config_overrides):
 
 
 def test_rec_ippo_vmap_seeds(fast_config_overrides):
-    from mava_tpu.advanced_usage.rec_ippo_vmap_seeds import run_experiment
+    from mava_jax.advanced_usage.rec_ippo_vmap_seeds import run_experiment
 
     cfg = load_config(
         "default_rec_ippo",
@@ -372,7 +372,7 @@ def test_rec_ippo_vmap_seeds(fast_config_overrides):
 
 def test_ff_mappo_vmap_seeds(fast_config_overrides):
     """CTDE delta composes with the seed axis: centralised critic + global state."""
-    from mava_tpu.advanced_usage.ff_mappo_vmap_seeds import run_experiment
+    from mava_jax.advanced_usage.ff_mappo_vmap_seeds import run_experiment
 
     cfg = load_config(
         "default_ff_mappo",
@@ -383,7 +383,7 @@ def test_ff_mappo_vmap_seeds(fast_config_overrides):
 
 
 def test_rec_mappo_vmap_seeds(fast_config_overrides):
-    from mava_tpu.advanced_usage.rec_mappo_vmap_seeds import run_experiment
+    from mava_jax.advanced_usage.rec_mappo_vmap_seeds import run_experiment
 
     cfg = load_config(
         "default_rec_mappo",
@@ -398,36 +398,35 @@ def test_rec_mappo_vmap_seeds(fast_config_overrides):
     assert isinstance(perf, float)
 
 
-class _PallasSpy:
-    """Counts gru_sequence invocations to prove the config wiring actually
-    selected the pallas path (the impl is threaded through network
-    construction now — there is no module global to assert on)."""
+class _GruImplSpy:
+    """Records the ScannedRNN implementation each trace resolves, to prove the
+    config wiring selected the intended path (the impl is threaded through
+    network construction — there is no module global to assert on)."""
 
     def __enter__(self):
-        from mava_tpu.ops import pallas_gru
+        from mava_jax.networks import actor_critic
 
-        self._mod = pallas_gru
-        self._orig = pallas_gru.gru_sequence
-        self.calls = 0
+        self._mod = actor_critic
+        self._orig = actor_critic.resolve_gru_impl
+        self.traced = []
 
-        def spy(*args, **kwargs):
-            self.calls += 1
-            return self._orig(*args, **kwargs)
+        def spy(impl=None):
+            self.traced.append(self._orig(impl))
+            return self.traced[-1]
 
-        pallas_gru.gru_sequence = spy
+        actor_critic.resolve_gru_impl = spy
         return self
 
     def __exit__(self, *exc):
-        self._mod.gru_sequence = self._orig
+        self._mod.resolve_gru_impl = self._orig
         return False
 
 
-def test_rec_ippo_pallas_gru(fast_config_overrides):
-    """rec-IPPO end-to-end with network.gru_impl=pallas: the fused Pallas
-    recurrence (interpret mode on CPU) composes with shard_map over the
-    8-device mesh, chunked BPTT and the evaluator — the full system surface,
-    not just the kernel in isolation."""
-    with _PallasSpy() as spy:
+def test_rec_ippo_cell_gru(fast_config_overrides):
+    """rec-IPPO end-to-end with network.gru_impl=cell: the per-step reference
+    GRU composes with shard_map over the 8-device mesh, chunked BPTT and the
+    evaluator — the full system surface, not just the cell in isolation."""
+    with _GruImplSpy() as spy:
         perf = _run(
             "ppo.rec_ippo",
             "default_rec_ippo",
@@ -435,21 +434,19 @@ def test_rec_ippo_pallas_gru(fast_config_overrides):
             + [
                 "env.kwargs.time_limit=16",
                 "system.recurrent_chunk_size=2",
-                "network.gru_impl=pallas",
+                "network.gru_impl=cell",
             ],
         )
-    # The config wiring must actually have traced the pallas kernel.
-    assert spy.calls > 0
+    # The config wiring must actually have traced the cell path, and only it.
+    assert spy.traced and set(spy.traced) == {"cell"}
     assert isinstance(perf, float)
 
 
-def test_rec_iql_pallas_gru(fast_config_overrides):
-    """rec-IQL end-to-end with network.gru_impl=pallas — its replay-train BPTT
-    feeds resets with a trailing singleton agent axis, the shape that once
-    crashed the pallas branch (see test_recurrent.test_pallas_impl_broadcast_resets).
-    With gru_impl defaulting to auto (= pallas on TPU), this is the shipping
-    TPU path for the off-policy recurrent family."""
-    with _PallasSpy() as spy:
+def test_rec_iql_cell_gru(fast_config_overrides):
+    """rec-IQL end-to-end with network.gru_impl=cell — its replay-train BPTT
+    feeds resets with a trailing singleton agent axis, broadcast against the
+    carry in the per-step path as in the hoisted one."""
+    with _GruImplSpy() as spy:
         perf = _run(
             "q_learning.rec_iql",
             "default_rec_iql",
@@ -462,10 +459,10 @@ def test_rec_iql_pallas_gru(fast_config_overrides):
                 "system.min_buffer_size=4",
                 "system.sample_batch_size=4",
                 "system.sample_sequence_length=4",
-                "network.gru_impl=pallas",
+                "network.gru_impl=cell",
             ],
         )
-    assert spy.calls > 0
+    assert spy.traced and set(spy.traced) == {"cell"}
     assert isinstance(perf, float)
 
 
@@ -481,8 +478,8 @@ def test_rec_iql_fused_target_pass_equivalence():
     import jax.numpy as jnp
     import numpy as np
 
-    from mava_tpu.parallel import make_mesh, num_learner_devices
-    from mava_tpu.systems.q_learning import rec_iql
+    from mava_jax.parallel import make_mesh, num_learner_devices
+    from mava_jax.systems.q_learning import rec_iql
 
     cfg = load_config(
         "default_rec_iql",
@@ -528,13 +525,12 @@ def test_rec_iql_fused_target_pass_equivalence():
 
 
 def test_two_systems_different_gru_impl_one_process(fast_config_overrides):
-    """VERDICT r3 #5 Done-criterion: two recurrent SYSTEMS built with
-    different network.gru_impl coexist in one process. rec-IPPO runs on the
-    legacy cell path while rec-IQL runs on pallas — built FIRST and applied
-    AFTER the other system trains, so any module-global leakage (the old
-    design: last setup wins) would misroute one of them. The pallas spy
-    proves rec-IQL traced the kernel and rec-IPPO (cell) did not."""
-    with _PallasSpy() as spy:
+    """Two recurrent SYSTEMS built with different network.gru_impl coexist in
+    one process. rec-IQL runs on the cell path, then rec-IPPO on the hoisted
+    one, so any module-global leakage (the old design: last setup wins) would
+    misroute one of them. The spy proves rec-IQL traced only the cell path and
+    rec-IPPO only the hoisted one."""
+    with _GruImplSpy() as spy:
         perf_iql = _run(
             "q_learning.rec_iql",
             "default_rec_iql",
@@ -547,11 +543,11 @@ def test_two_systems_different_gru_impl_one_process(fast_config_overrides):
                 "system.min_buffer_size=4",
                 "system.sample_batch_size=4",
                 "system.sample_sequence_length=4",
-                "network.gru_impl=pallas",
+                "network.gru_impl=cell",
             ],
         )
-        iql_calls = spy.calls
-        assert iql_calls > 0
+        iql_traced = list(spy.traced)
+        assert iql_traced and set(iql_traced) == {"cell"}
         perf_ippo = _run(
             "ppo.rec_ippo",
             "default_rec_ippo",
@@ -559,12 +555,9 @@ def test_two_systems_different_gru_impl_one_process(fast_config_overrides):
             + [
                 "env.kwargs.time_limit=16",
                 "system.recurrent_chunk_size=2",
-                "network.gru_impl=cell",
+                "network.gru_impl=hoisted",
             ],
         )
-        # The cell-path system must not have touched the pallas kernel.
-        assert spy.calls == iql_calls
-    from mava_tpu.networks import actor_critic
-
-    assert actor_critic.GRU_IMPL == "auto"  # neither system mutated the default
+        ippo_traced = spy.traced[len(iql_traced):]
+        assert ippo_traced and set(ippo_traced) == {"hoisted"}
     assert isinstance(perf_iql, float) and isinstance(perf_ippo, float)

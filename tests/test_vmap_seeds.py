@@ -14,21 +14,21 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from mava_tpu import envs as environments
-from mava_tpu.parallel import (
+from mava_jax import envs as environments
+from mava_jax.parallel import (
     DATA_AXIS,
     build_learner,
     make_mesh,
     num_learner_devices,
 )
-from mava_tpu.systems.ppo import ff_ippo
-from mava_tpu.systems.ppo.types import LearnerState
-from mava_tpu.types import ExperimentOutput
-from mava_tpu.utils.config import load_config
+from mava_jax.systems.ppo import ff_ippo
+from mava_jax.systems.ppo.types import LearnerState
+from mava_jax.types import ExperimentOutput
+from mava_jax.utils.config import load_config
 
 
 def test_vmap_seeds_matches_stock_learner_bitwise():
-    from mava_tpu.advanced_usage import ff_ippo_vmap_seeds as vs
+    from mava_jax.advanced_usage import ff_ippo_vmap_seeds as vs
 
     cfg = load_config(
         "default_ff_ippo",
@@ -96,8 +96,8 @@ def test_isac_vmap_seeds_matches_stock_learner():
     """Off-policy extension of the same claim: seed s of the batched SAC
     program (explore + one update, including its per-seed replay buffer)
     equals the stock ff-ISAC learner started from seed s's initial state."""
-    from mava_tpu.advanced_usage import ff_isac_vmap_seeds as vs
-    from mava_tpu.systems.sac import ff_isac
+    from mava_jax.advanced_usage import ff_isac_vmap_seeds as vs
+    from mava_jax.systems.sac import ff_isac
 
     cfg = load_config(
         "default_ff_isac",
@@ -131,7 +131,7 @@ def test_isac_vmap_seeds_matches_stock_learner():
         cfg, envs_[0], networks, optims, rb, target_entropy, False
     )
     stock_specs = ff_isac._state_specs(init_host.buffer_state)
-    from mava_tpu.parallel import build_learner
+    from mava_jax.parallel import build_learner
 
     explore_s = build_learner(
         explore_fn, mesh, in_specs=(stock_specs,),
@@ -154,8 +154,8 @@ def test_rec_iql_vmap_seeds_matches_stock_learner():
     """Same claim for the fused act+train Q-learner: per-seed slice of the
     batched program equals the stock rec-IQL update (replay write + sample +
     double-DQN train, eps schedule driven by the per-seed step counter)."""
-    from mava_tpu.advanced_usage import rec_iql_vmap_seeds as vs
-    from mava_tpu.systems.q_learning import rec_iql
+    from mava_jax.advanced_usage import rec_iql_vmap_seeds as vs
+    from mava_jax.systems.q_learning import rec_iql
 
     cfg = load_config(
         "default_rec_iql",
@@ -202,7 +202,7 @@ def test_buffer_experience_stays_on_device_in_seed_setup():
     with the seed-lifted sharding."""
     import numpy as np
 
-    from mava_tpu.advanced_usage import ff_isac_vmap_seeds as vs
+    from mava_jax.advanced_usage import ff_isac_vmap_seeds as vs
 
     class BufState:
         def __init__(self, experience, current_index, is_full):

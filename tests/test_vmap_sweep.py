@@ -17,12 +17,12 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import PartitionSpec as P
 
-from mava_tpu import envs as environments
-from mava_tpu.parallel import DATA_AXIS, make_mesh, num_learner_devices
-from mava_tpu.systems.ppo import ff_ippo
-from mava_tpu.systems.ppo.types import LearnerState
-from mava_tpu.utils.config import Config, load_config
-from mava_tpu.utils.training import (
+from mava_jax import envs as environments
+from mava_jax.parallel import DATA_AXIS, make_mesh, num_learner_devices
+from mava_jax.systems.ppo import ff_ippo
+from mava_jax.systems.ppo.types import LearnerState
+from mava_jax.utils.config import Config, load_config
+from mava_jax.utils.training import (
     make_learning_rate,
     make_optimizer,
     make_swept_optimizer,
@@ -69,7 +69,7 @@ def test_swept_optimizer_bitwise_matches_stock():
 
 
 def test_vmap_sweep_entry_matches_stock_learner_at_that_lr():
-    from mava_tpu.advanced_usage import ff_ippo_vmap_seeds as vs
+    from mava_jax.advanced_usage import ff_ippo_vmap_seeds as vs
 
     overrides = [
         "env.kwargs.time_limit=8",
@@ -152,9 +152,9 @@ def test_rec_vmap_sweep_entry_matches_stock_learner_at_that_lr():
     """Recurrent counterpart: entry i of the batched rec-IPPO sweep matches the
     stock rec-IPPO learner configured at sweep_lrs[i], started from entry i's
     initial state (params/envs/rng/hstates)."""
-    from mava_tpu.advanced_usage import rec_ippo_vmap_seeds as vs
-    from mava_tpu.systems.ppo import rec_ippo
-    from mava_tpu.systems.ppo.types import RNNLearnerState
+    from mava_jax.advanced_usage import rec_ippo_vmap_seeds as vs
+    from mava_jax.systems.ppo import rec_ippo
+    from mava_jax.systems.ppo.types import RNNLearnerState
 
     overrides = [
         "env.kwargs.time_limit=8",
@@ -225,7 +225,7 @@ def test_swept_adam_bitwise_matches_stock_sac_optimizer():
     family's optimizer — on a synthetic gradient stream."""
     import optax
 
-    from mava_tpu.utils.training import make_swept_adam
+    from mava_jax.utils.training import make_swept_adam
 
     params = {"w": jnp.arange(8, dtype=jnp.float32).reshape(2, 4) / 3.0}
     for lr in (3e-4, 1e-3):
@@ -246,9 +246,9 @@ def test_isac_vmap_sweep_entry_matches_stock_at_that_lr():
     """Entry i of the batched SAC lr sweep (same seed everywhere, lr in
     optimizer state) matches the stock non-swept ff-ISAC — params, replay
     buffer and counters — run at policy_lr=q_lr=sweep_lrs[i]."""
-    from mava_tpu.advanced_usage import ff_isac_vmap_seeds as vs
-    from mava_tpu.parallel import build_learner
-    from mava_tpu.systems.sac import ff_isac
+    from mava_jax.advanced_usage import ff_isac_vmap_seeds as vs
+    from mava_jax.parallel import build_learner
+    from mava_jax.systems.sac import ff_isac
 
     overrides = [
         "env=maswarm",
@@ -317,8 +317,8 @@ def test_rec_iql_vmap_sweep_entry_matches_stock_at_that_lr():
     """Entry i of the batched rec-IQL lr sweep matches the stock non-swept
     rec-IQL (params, trajectory buffer, counters) run at q_lr=sweep_lrs[i]
     from the same seed."""
-    from mava_tpu.advanced_usage import rec_iql_vmap_seeds as vs
-    from mava_tpu.systems.q_learning import rec_iql
+    from mava_jax.advanced_usage import rec_iql_vmap_seeds as vs
+    from mava_jax.systems.q_learning import rec_iql
 
     overrides = [
         "env=smax",
@@ -374,7 +374,7 @@ def test_decay_schedule_clamps_at_zero_past_horizon():
     """Past the planned horizon the lr must hold at 0, not go negative
     (regression for the gradient-ascent failure mode), in BOTH the stock
     schedule and the swept optimizer."""
-    from mava_tpu.utils.training import make_learning_rate_schedule
+    from mava_jax.utils.training import make_learning_rate_schedule
 
     cfg = _toy_config(decay=True)  # horizon = 2*2*3 = 12 updates
     sched = make_learning_rate_schedule(1e-3, cfg)
@@ -395,7 +395,7 @@ def test_parse_sweep_lrs_accepts_yaml_list_and_comma_string():
     """CLI robustness: yaml parses `[1e-4, 3e-4]` to a list of STRINGS (bare
     scientific notation is not a yaml float), and users may also pass a plain
     comma string — both must coerce to floats."""
-    from mava_tpu.advanced_usage.ff_ippo_vmap_sweep import parse_sweep_lrs
+    from mava_jax.advanced_usage.ff_ippo_vmap_sweep import parse_sweep_lrs
 
     cfg = Config.from_dict({"system": {"sweep_lrs": ["1e-4", "3e-4", 0.001]}})
     assert parse_sweep_lrs(cfg) == [1e-4, 3e-4, 1e-3]
